@@ -2,7 +2,7 @@
 
 Runs the FRAMEWORK part 1 twice on identical side-by-side fixtures —
 ``matrix_mode="exact"`` (host f64, byte-equal to the reference at every
-directly-comparable scale: BENCHMARKS.md side-by-side table) vs
+directly-comparable scale: benchmarks/ref_sidebyside.py) vs
 ``matrix_mode="device"`` (the O(N^2 log N) rank ARGSORT on device in
 f32 — the similarity and log transforms stay host f64; see the
 matrix_mode table in models/part1_cluster.py) — and byte-compares the
@@ -18,7 +18,7 @@ can change a decision: counts are exact integers either way, so a
 decision flips only where an f32 value collision reorders two ranks,
 models/part1_cluster.py docstring).
 
-Usage (deployment backend = the TPU; CPU works for the mechanism too):
+Usage (deployment backend = the GPU; CPU works for the mechanism too):
   python benchmarks/device_mode_parity.py [--sizes 2900 4700 6500 9000 12000]
 """
 

@@ -19,8 +19,8 @@ Usage:
   JAX_PLATFORMS=cpu python benchmarks/ref_sidebyside.py [--sizes 2900 4700 6500]
 
 CPU-only by design: the reference is pure Python/numpy, and running the
-framework on the same host isolates the ALGORITHMIC gap from TPU
-hardware (TPU numbers live in run_benchmarks.py configs 2/3).
+framework on the same host isolates the ALGORITHMIC gap from the
+accelerator (device numbers come from run_benchmarks.py configs 2/3).
 """
 
 from __future__ import annotations
@@ -39,11 +39,6 @@ import types
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax  # noqa: E402
-
-if os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 
 from hic_genome_assembler_tpu.cluster import louvain as our_louvain  # noqa: E402
 from hic_genome_assembler_tpu.models import part1_cluster  # noqa: E402

@@ -33,42 +33,16 @@ def main(workdir: str = "/tmp/hic_demo") -> None:
     )
     paths = fixtures.write_hicpro_files(genome, os.path.join(workdir, "hicpro"))
 
-    config_path = os.path.join(workdir, "config.txt")
-    with open(config_path, "w") as cfg:
-        cfg.write(
-            "\n".join(
-                [
-                    f"resolution = {genome.resolution}",
-                    f"saveFilesDirectory = {files_dir}",
-                    f"savePlotsDirectory = {plots_dir}",
-                    f"hicProBedFile = {paths['bed']}",
-                    f"hicProBiasFile = {paths['bias']}",
-                    f"hicProMatrixFile = {paths['matrix']}",
-                    f"hicProScaffSizeFile = {paths['sizes']}",
-                    "chromosomeGroupFile = chromgroups.txt",
-                    "chromosomeOrderFile = chromorder.txt",
-                    "finalOrderingsFile = final_order.txt",
-                    "dendrogramOrderFile = dendro.txt",
-                    "avgClusterPlot = avg_cluster.png",
-                    "avgClusterPlot_outlined = avg_cluster_outlined.png",
-                    "binGroupFile = bingroups.txt",
-                    "assessmentFile = assessment.txt",
-                    "chromosomePlotSuffix =  (fixture)",
-                    "fullGenomePlot = full_genome.png",
-                    "fullGenomePlotTitle = synthetic genome",
-                    "plotOrderFile = plotorder.txt",
-                    "nScaffolds = 4",
-                    "scanScaffolds = 3",
-                    "modularity = 0",
-                    "lengthCutoff = 500000",
-                    f"restrictionSiteFile = {paths['restriction']}",
-                    f"validPairFile = {paths['validpairs']}",
-                    f"originalFastaFile = {paths['fasta']}",
-                    "assembledFastaFile = assembled.fasta",
-                ]
-            )
-            + "\n"
-        )
+    config_path = fixtures.write_pipeline_config(
+        os.path.join(workdir, "config.txt"), paths, files_dir, genome.resolution,
+        savePlotsDirectory=plots_dir,
+        avgClusterPlot="avg_cluster.png",
+        avgClusterPlot_outlined="avg_cluster_outlined.png",
+        chromosomePlotSuffix=" (fixture)",
+        fullGenomePlot="full_genome.png",
+        fullGenomePlotTitle="synthetic genome",
+        nScaffolds=4, scanScaffolds=3, modularity=0, lengthCutoff=500000,
+    )
 
     cli.main(["-part1", "-part2", "-part3", "-part4", "-config", config_path])
 

@@ -1,4 +1,4 @@
-"""hic_genome_assembler_tpu — a TPU-native Hi-C scaffolding engine.
+"""hic_genome_assembler_tpu — a JAX Hi-C scaffolding engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 AO33/HiC_Genome_Assembler (reference: /root/reference/HIC_ASSEMBLER): a

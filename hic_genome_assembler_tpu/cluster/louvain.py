@@ -93,10 +93,9 @@ def _one_level(a_tilde: np.ndarray, k: np.ndarray, two_m: float, rng) -> np.ndar
     (scatter-add link accumulation in index order, multiply/divide/
     subtract gain form, first-max argmax), so partitions are
     bit-identical to :func:`_one_level_numpy` while removing the
-    ~60 us/visit of numpy dispatch overhead and per-visit allocations —
+    per-visit numpy dispatch overhead and allocations —
     this is what bounds pure-modularity mode (min_frac==1,
-    scaffoldToChromosomes.py:541-544 semantics) at 16K
-    (BENCHMARKS.md round 4).
+    scaffoldToChromosomes.py:541-544 semantics) at 16K.
 
     Design note vs SURVEY §2b's "modularity gains as device matvecs":
     the sweep is inherently sequential — every accepted move changes

@@ -13,11 +13,15 @@ Behavior-compatible with the reference config parser
   intent, not byte-identical text);
 * every key must end up non-empty or validation fails, and setting both
   ``hyperGeom`` and ``hmm`` to True is a fatal configuration error
-  (run_hicAssembler.py:221-245).
+  (run_hicAssembler.py:221-245).  One deviation: the plot keys may be
+  left empty, which turns that plot off (an empty ``savePlotsDirectory``
+  turns off the per-chromosome plots); a set plot key needs matplotlib,
+  and validation fails up front when it is missing.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import sys
 from typing import Any, Dict
 
@@ -56,6 +60,13 @@ _PLAIN_KEYS = (
     "validPairFile",
     "originalFastaFile",
 )
+
+# Plot keys that may stay empty (that plot is then skipped).
+_OPTIONAL_PLOT_KEYS = (
+    "savePlotsDirectory",
+    "chromosomePlotSuffix",
+    "fullGenomePlotTitle",
+) + _PLOTS_DIR_KEYS
 
 _INT_KEYS = {
     "minSize": 5,
@@ -230,9 +241,13 @@ def read_config_file_to_variables(config_file: str) -> Dict[str, Any]:
 def ensure_all_variables_are_set(var: Dict[str, Any]) -> bool:
     """Return True when the run must abort (run_hicAssembler.py:221-245).
 
-    True iff any key is still '' or both hyperGeom and hmm are True.
+    True iff any required key is still '', both hyperGeom and hmm are
+    True, or a plot is requested without matplotlib installed.
     """
-    unset = [key for key, val in var.items() if val == ""]
+    unset = [
+        key for key, val in var.items()
+        if val == "" and key not in _OPTIONAL_PLOT_KEYS
+    ]
     if var["hyperGeom"] is True and var["hmm"] is True:
         print(
             '- WARNING - Both hyperGeom and hmm options are set to True... '
@@ -248,5 +263,15 @@ def ensure_all_variables_are_set(var: Dict[str, Any]) -> bool:
         for key in unset:
             print(key)
         print("Exiting...")
+        return True
+    plots = [
+        key for key in ("savePlotsDirectory",) + _PLOTS_DIR_KEYS if var[key]
+    ]
+    if plots and importlib.util.find_spec("matplotlib") is None:
+        print(
+            "- ERROR - plotting is requested ({}) but matplotlib is not "
+            "installed. Install matplotlib or leave these keys empty. "
+            "Exiting...".format(", ".join(plots))
+        )
         return True
     return False

@@ -78,14 +78,12 @@ def read_coo_matrix(matrix_file: str) -> np.ndarray:
     ~10^8 triplets at 100 Kb resolution on a 1.6 Gb genome.  Falls back
     to pandas' C parser (~10x numpy.loadtxt), then numpy.loadtxt.
     """
-    try:
-        from hic_genome_assembler_tpu.io import native
+    from hic_genome_assembler_tpu.io import native
 
+    if native.available():
         arr = native.parse_coo(matrix_file)
         if arr is not None:
             return arr
-    except Exception:
-        pass
     try:
         import pandas as pd
 

@@ -3,44 +3,75 @@
 The compute path is JAX/XLA; the IO runtime around it is native where
 the data volume warrants it — here, the validPairs stream filter
 (orientSmallScaffolds.py:159-177's hot loop #3, SURVEY.md §3.3).  The
-shared library is built on demand with g++ -O3 and cached next to the
-sources; every native entry point has a pure-Python fallback at its call
-site, so the framework works without a toolchain.
+shared library is built from ``native/*.cpp`` with g++ at first use,
+into ``native/build/libhicio-<hash>.so`` (a path .gitignore lists),
+where the hash covers the sources and the compiler flags: an edited
+source builds a new library, and an unchanged one is never rebuilt.
+Every native entry point has a pure-Python fallback at its call site,
+so the framework works without a toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
+import hashlib
 import os
 import subprocess
 from typing import Dict, Optional, Tuple
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libhicio.so")
-_SOURCES = [
-    os.path.join(_NATIVE_DIR, "validpairs_scanner.cpp"),
-    os.path.join(_NATIVE_DIR, "coo_parser.cpp"),
-    os.path.join(_NATIVE_DIR, "distance_transform.cpp"),
-    os.path.join(_NATIVE_DIR, "louvain_sweep.cpp"),
-    os.path.join(_NATIVE_DIR, "argsort_rows.cpp"),
-    os.path.join(_NATIVE_DIR, "permute_f64.cpp"),
-]
+# portable flags: the checkout (build directory included) may be copied
+# to another host; no FMA contraction may touch the kernels that must
+# match numpy bit for bit
+_CXXFLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC", "-pthread")
 
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
 
 
-def _build() -> bool:
+def library_path(native_dir: str = _NATIVE_DIR) -> str:
+    """Where the library built from ``native_dir``'s current sources
+    lives (keyed on a hash of the sources and flags)."""
+    h = hashlib.sha256(" ".join(_CXXFLAGS).encode())
+    for src in sorted(glob.glob(os.path.join(native_dir, "*.cpp"))):
+        h.update(b"\0" + os.path.basename(src).encode() + b"\0")
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(native_dir, "build", f"libhicio-{h.hexdigest()[:16]}.so")
+
+
+def build_library(native_dir: str = _NATIVE_DIR) -> Optional[str]:
+    """Build the library for the current sources unless it exists;
+    returns its path, or None when the build fails.  Concurrent
+    processes serialize on a lock file and the finished library is
+    renamed into place, so no process loads a partial file."""
+    import fcntl
+
+    path = library_path(native_dir)
+    if os.path.exists(path):
+        return path
+    tmp = f"{path}.{os.getpid()}.tmp"
+    sources = sorted(glob.glob(os.path.join(native_dir, "*.cpp")))
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread", "-o", _SO_PATH, *_SOURCES],
-            check=True,
-            capture_output=True,
-        )
-        return True
-    except (subprocess.CalledProcessError, FileNotFoundError) as exc:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(os.path.join(os.path.dirname(path), ".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not os.path.exists(path):
+                subprocess.run(
+                    ["g++", *_CXXFLAGS, "-o", tmp, *sources],
+                    check=True,
+                    capture_output=True,
+                )
+                os.replace(tmp, path)
+    except (OSError, subprocess.CalledProcessError) as exc:
+        # no compiler, or an unwritable checkout
         print(f"- native IO build failed ({exc}); using pure-Python fallbacks")
-        return False
+        return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -49,13 +80,11 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
     if _build_failed:
         return None
-    if not os.path.exists(_SO_PATH) or any(
-        os.path.getmtime(src) > os.path.getmtime(_SO_PATH) for src in _SOURCES
-    ):
-        if not _build():
-            _build_failed = True
-            return None
-    lib = ctypes.CDLL(_SO_PATH)
+    path = build_library()
+    if path is None:
+        _build_failed = True
+        return None
+    lib = ctypes.CDLL(path)
     lib.scan_validpairs.restype = ctypes.c_int
     lib.scan_validpairs.argtypes = [
         ctypes.c_char_p,

@@ -228,9 +228,9 @@ def run_pipeline(
              introsort, a per-numpy-build artifact no device sort can
              reproduce, and window membership counts consume that
              order wherever an equal-value group (every zero contact,
-             duplicated values) straddles a window prefix.  Measured
-             divergence by scale: BENCHMARKS.md round 4 / committed
-             DEVICE_PARITY_r04.log.  ``exact`` reproduces the
+             duplicated values) straddles a window prefix (measure the
+             divergence by scale with benchmarks/device_mode_parity.py).
+             ``exact`` reproduces the
              reference bit-for-bit (same numpy argsort) and is the
              accelerated default (native fused transforms +
              thread-parallel rank build), so device mode is only for
@@ -247,7 +247,6 @@ def run_pipeline(
     print("########################################")
     print("### Working on Part1 of the pipeline ###")
     total_start = time.time()
-    profiling.reset()
 
     # --- ingest + cluster ---------------------------------------------------
     start = time.time()

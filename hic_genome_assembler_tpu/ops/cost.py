@@ -1,4 +1,4 @@
-"""TPU scoring engine for the distance-weighted contact cost.
+"""Device scoring engine for the distance-weighted contact cost.
 
 The reference scores one candidate arrangement at a time with a numba
 kernel over the permuted C x C matrix (orderGenome.py:184-193,
@@ -19,7 +19,7 @@ greedy insertion and sliding-window refinement
 of O(C^2), a ~C^2/S^2 algorithmic speedup over the reference kernel
 before any parallelism.
 
-Decision exactness: device scoring runs in fast (f32 on TPU) precision;
+Decision exactness: device scoring runs in fast (f32) precision;
 ``argmax_reference_ties`` re-scores the top-k candidates on host in
 float64 with the reference's exact summation order
 (ops.oracle.cost_function) and applies the reference's tie rule (strict
@@ -83,9 +83,9 @@ def bin_order_of_block(
 def _skew_profile_chunk(m_pad, blk_idx, sizes_s, chunk_start, S, k):
     """Pair profiles for scaffold rows [chunk_start, chunk_start + k).
 
-    Scatter-free: TPU scatter-add (``_build_pair_profiles``) serializes
-    on duplicate indices (~170ms at C=2048 vs ~1ms here); everything in
-    this path is bandwidth-shaped instead.
+    Scatter-free: the scatter-add (``_build_pair_profiles``) serializes
+    on duplicate indices; everything in this path is bandwidth-shaped
+    instead.
 
     1. ``G[s, t, a, b] = M[offs_s + a, offs_t + b]`` — a padded block
        view built with one static-index gather (``m_pad`` carries a zero
@@ -190,7 +190,7 @@ def _build_pair_profiles(sub, sid, loc, sizes, Sp, L, cmax):
 
 @functools.partial(jax.jit, static_argnames=("shift", "C"))
 def _profiles_to_table(h, wpad, shift, C):
-    """F[row, delta] = sum_m h[row, m] * w(delta + m - shift) — one MXU
+    """F[row, delta] = sum_m h[row, m] * w(delta + m - shift) — one
     matmul; re-run per scaffold subset with that subset's weights."""
     L = h.shape[1]
     # Wm[m, delta] = wpad[delta + m - shift] (0 outside [1, C-1])
@@ -212,7 +212,7 @@ def _block_score_kernel(
     Cp1: int,
 ) -> jnp.ndarray:
     """Scores all R orientation combos of each order with P*4 gathers per
-    order + one MXU matmul: the 4 orientation variants of every pair's
+    order + one matmul: the 4 orientation variants of every pair's
     table entry are fetched once and combined across combos by the
     precomputed one-hot selector matrix (64x fewer gathers than the
     naive [Bo, R, P] gather)."""
@@ -236,8 +236,8 @@ def _block_score_topk_kernel(F_flat, sizes, orders, e_onehot, pi, pj, c0, Cp1, k
     leave the chip.
 
     Selection is a group-argmax over k contiguous index groups rather
-    than lax.top_k (whose fused sort costs ~100s of XLA compile at this
-    size vs <1s for plain reductions).  Guarantees: the global maximum
+    than lax.top_k (whose fused sort compiles far slower at this size
+    than plain reductions).  Guarantees: the global maximum
     is always returned (it is its own group's max), exact ties in OTHER
     groups are returned, and within a group argmax takes the lowest
     index — matching the reference's first-strictly-greater update.
@@ -280,8 +280,8 @@ def _group_argmax(flat: jnp.ndarray, k: int):
 # versus Bo*P*4 = 2.26M per-candidate gathers from the big F table, and
 # the candidate->combo map ``cid`` is PURE COMBINATORICS — computed once
 # per n and cached for the whole process (every chromosome reuses it).
-# Scoring then = one tiny F gather (n_combo x 4) + a VMEM-sized table
-# gather + one MXU einsum.
+# Scoring then = one tiny F gather (n_combo x 4) + a small-table gather
+# + one einsum.
 # ---------------------------------------------------------------------------
 
 _COMBO_CACHE: dict = {}
@@ -381,7 +381,7 @@ def _combo_index(orders: np.ndarray) -> dict:
 
 @jax.jit
 def _combo_score_kernel(F_flat, idx4, cid, E, c0):
-    """V4 = F[idx4] (tiny), vals = V4[cid] (VMEM-sized table), one MXU
+    """V4 = F[idx4] (tiny), vals = V4[cid] (a ~64 KB table), one
     einsum folds the 4 orientation variants against the per-position
     orientation selector E[P, 4, R]."""
     V4 = F_flat[idx4]                                        # [n_combo, 4]
@@ -432,7 +432,7 @@ class ChromosomeScorer:
 
     This replaces the reference's O(C^2)-per-candidate numba kernel with
     O(S^2) table gathers per candidate plus one (4*Sp^2, L) @ (L, C+1)
-    MXU matmul per subset.
+    matmul per subset.
     """
 
     def __init__(
@@ -450,7 +450,7 @@ class ChromosomeScorer:
         ``device_sub``: optional device-resident fast-dtype copy of
         ``sub_matrix`` (e.g. sliced on device from the genome matrix by
         the part-2 driver).  Providing it skips the host->device matrix
-        transfer — the dominant table-build cost over a thin host link;
+        transfer;
         ``sub_matrix`` is still required for the f64 exact bookkeeping
         (totals, c0, host re-scoring)."""
         self._mesh = mesh
@@ -674,9 +674,7 @@ class SubsetScorer:
         escalation witness for ``argmax_reference_ties_sparse``.
         Global index = order_idx * R + orient_idx (reference enumeration
         order).  The full-cost path (``score_batch``) moves Bo*R floats
-        across the host link; this moves 3k per chunk — the difference
-        between ~3M and ~200M candidate evaluations/s over a thin
-        host<->device link.
+        to the host; this moves 3k per chunk.
         """
         handles, finish = self.score_batch_topk_async(
             orders, orients, k=k, chunk_orders=chunk_orders
@@ -921,21 +919,19 @@ def BlockScorer(
 # no cancellation), so the f32 kernel's relative error is bounded by
 # depth * u with u = 2^-24 and depth the accumulation-chain length;
 # XLA reduces the table contractions in blocked trees, depth <~ 64 even
-# at C = 4096, bounding |f64 - f32| / |f64| <~ 4e-6.  Measured (200
-# random candidates per shape, C up to 1200, v5e TPU AND XLA:CPU):
-# max 9e-8, median 3e-8 — but ONLY with Precision.HIGHEST on the MXU
-# contractions below; the MXU's default bf16-multiply path measured
-# 5e-4, which is why every scoring dot pins HIGHEST (they are
-# gather/bandwidth-bound, so full-fidelity multiplies are free).
-# 1e-4 is therefore a >1,000x measured safety factor, and it is
-# *enforced*, not assumed: every rescored candidate's observed
-# |f64 - f32| feeds ``PRECISION`` (warns at margin/8 = 1.25e-5, itself
-# ~140x the measured max), and the decision rules below escalate —
+# at C = 4096, bounding |f64 - f32| / |f64| <~ 4e-6.  That bound needs
+# true f32 multiplies: a GPU runs default-precision f32 matmuls in
+# TF32 (about three decimal digits), so every scoring dot pins
+# Precision.HIGHEST (they are gather/bandwidth-bound, so full-fidelity
+# multiplies cost little).  The measured errors, per backend, are in
+# docs/PRECISION.md.  The margin is *enforced*, not assumed: every rescored candidate's observed
+# |f64 - f32| feeds ``PRECISION`` (warns at margin/8 = 1.25e-5), and
+# the decision rules below escalate —
 # widening the rescore set, or pulling the full cost vector when the
 # device top-k floor is too close — until no unseen candidate can beat
 # the winner.  The margin is deliberately NOT wider: every candidate
 # whose fast score lands within it of the exact winner costs an O(C^2)
-# host f64 re-score (~5-10ms at C~2000), and near-symmetric inputs put
+# host f64 re-score, and near-symmetric inputs put
 # many genuine near-ties inside a loose band (a 1e-3 margin measurably
 # stalled genome-scale part 2 on tie-heavy fixtures).
 _F32_MARGIN = 1e-4

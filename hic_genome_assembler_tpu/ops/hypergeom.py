@@ -5,10 +5,9 @@ as numbers — every use is the strict decision ``sf(x-1, M, n, N) < psig``
 (the reference's ``hyper_geom`` at scaffoldToChromosomes.py:352-368 feeding
 the comparisons at :455,462,634,668).  The reference (and round-2 of this
 framework) evaluates the full survival function through scipy/Boost for
-every row, which costs ~0.7 s per 16K-row sweep and made cut detection
-the dominant part-1 stage (62.7 s of 106.6 s at 16K, BENCHMARKS.md r2).
+every row, which made cut detection the dominant part-1 stage at 16K.
 
-This module computes the *decisions* exactly at ~20-40 ms per sweep:
+This module computes the *decisions* exactly, far faster per sweep:
 
 * For Hypergeom(M, n, N) the pmf mass lives in a window of width O(sigma)
   around the mean mu = nN/M, and for the n == N == k case used by the

@@ -1,6 +1,6 @@
 """Contact-matrix transform kernels (device-side, JAX/XLA).
 
-TPU-native replacements for the reference's O(N^2) Python-loop matrix
+Device replacements for the reference's O(N^2) Python-loop matrix
 layer (scaffoldToChromosomes.py:100-183 / orderGenome.py:95-178):
 
 * distance transform      row -> (1 - row/row.sum()) + 1
@@ -144,10 +144,8 @@ def fixed_window_counts_many(
     """Batched fixed-window counts: params int32[K, 2] of (start, cut)
     rows -> int32[K, n].
 
-    One dispatch + one readback for the cut-noise filter's whole working
-    set (the XLA analog of pallas_kernels.fixed_window_counts_many; the
-    per-call path costs a full kernel launch + host sync per (start,
-    cut), which dominated part-1 cut detection — see BENCHMARKS.md).
+    One dispatch + one readback for a whole working set of windows
+    instead of a kernel launch + host sync per (start, cut).
     """
     return jax.vmap(
         lambda p: fixed_window_counts(rank_mat, p[0], p[1])
@@ -158,10 +156,9 @@ def fixed_window_counts_many(
 def counts_many(rank_mat: jnp.ndarray, params: jnp.ndarray) -> jnp.ndarray:
     """Mixed batched counts: params int32[K, 3] rows of (start, cut,
     flag) where flag=1 selects the growing scan and flag=0 the fixed
-    window — one dispatch for an arbitrary working set (the XLA analog
-    of pallas_kernels._counts_call_many; lax.map keeps the per-scan
-    [n, n] mask transient sequential instead of materializing K of
-    them)."""
+    window — one dispatch for an arbitrary working set (lax.map keeps
+    the per-scan [n, n] mask transient sequential instead of
+    materializing K of them)."""
 
     def one(p):
         return jax.lax.cond(

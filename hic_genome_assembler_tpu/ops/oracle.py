@@ -18,10 +18,8 @@ def to_distance(matrix: np.ndarray) -> np.ndarray:
 
     Must stay f64-bit-identical to the reference in every mode — scipy
     linkage consumes these values and the dendrogram is a byte-equality
-    target — and TPU hardware has no f64, so the fast path is the fused
-    threaded native kernel (native/distance_transform.cpp; same
-    per-element IEEE op sequence, ~10x the naive numpy expression at
-    16K).  Row sums stay on numpy: its pairwise-summation order is part
+    target — so the fast path is the fused threaded native host kernel
+    (native/distance_transform.cpp; same per-element IEEE op sequence).  Row sums stay on numpy: its pairwise-summation order is part
     of the parity contract.  Fallback: in-place numpy (one temporary
     instead of three, still bit-identical)."""
     row_sums = matrix.sum(axis=1, keepdims=True)
@@ -150,7 +148,7 @@ def permute_symmetric(matrix: np.ndarray, order) -> np.ndarray:
     (reorderMatrix, scaffoldToChromosomes.py:157-163).
 
     numpy's fancy-index gather is single-threaded and cache-hostile at
-    16K (2.1 GB at ~0.2 GB/s); the native threaded kernel
+    16K (a 2.1 GB matrix); the native threaded kernel
     (native/permute_f64.cpp) does the identical data movement at memory
     bandwidth.  Bit-identical by construction (pure copy)."""
     matrix = np.asarray(matrix)
@@ -332,3 +330,93 @@ def upper_triangle_total(matrix: np.ndarray) -> float:
     """sum over offsets >= 1 of trace(matrix, offset) — the cost
     normalizer (orderGenome.py:343,448,506)."""
     return float(sum(np.trace(matrix, offset=i) for i in range(1, len(matrix))))
+
+
+# ---------------------------------------------------------------------------
+# Gaussian HMM (2-state, diagonal): a plain numpy EM + Viterbi.  It takes
+# a different numerical route from ops/gaussian_hmm.py (Rabiner-scaled
+# probability-space forward-backward instead of log-space scans), with
+# hmmlearn's semantics as the reference configures them.
+# ---------------------------------------------------------------------------
+
+_HMM_MIN_COVAR = 1e-3
+
+
+def gaussian_hmm_log_density(X, means, covars) -> np.ndarray:
+    """log N(x_t | mu_k, diag(sig_k)) for all t, k: [T, K]."""
+    X = np.asarray(X, dtype=np.float64)
+    out = np.empty((X.shape[0], means.shape[0]))
+    for k in range(means.shape[0]):
+        quad = ((X - means[k]) ** 2 / covars[k]).sum(axis=1)
+        out[:, k] = -0.5 * (quad + np.log(2.0 * np.pi * covars[k]).sum())
+    return out
+
+
+def _scaled_forward_backward(log_b, startprob, trans):
+    """Rabiner-scaled alpha/beta on per-frame rescaled densities;
+    returns (loglik, gamma, xi_sum)."""
+    shift = log_b.max(axis=1)
+    b = np.exp(log_b - shift[:, None])  # per-frame factors cancel below
+    T, K = b.shape
+    alpha = np.empty((T, K))
+    scale = np.empty(T)
+    alpha[0] = startprob * b[0]
+    scale[0] = alpha[0].sum()
+    alpha[0] /= scale[0]
+    for t in range(1, T):
+        alpha[t] = (alpha[t - 1] @ trans) * b[t]
+        scale[t] = alpha[t].sum()
+        alpha[t] /= scale[t]
+    beta = np.empty((T, K))
+    beta[-1] = 1.0
+    for t in range(T - 2, -1, -1):
+        beta[t] = (trans @ (b[t + 1] * beta[t + 1])) / scale[t + 1]
+    gamma = alpha * beta
+    gamma /= gamma.sum(axis=1, keepdims=True)
+    xi_sum = np.zeros((K, K))
+    for t in range(T - 1):
+        xi_sum += (
+            alpha[t][:, None]
+            * trans
+            * (b[t + 1] * beta[t + 1])[None, :]
+            / scale[t + 1]
+        )
+    return float(np.log(scale).sum() + shift.sum()), gamma, xi_sum
+
+
+def gaussian_hmm_em_fit(X, means, covars, trans, startprob, tol, n_iter):
+    """hmmlearn-semantics EM: lp from PRE-update params, M step always
+    applies, stop once lp - prev_lp < tol.  Returns (means, covars,
+    trans)."""
+    X = np.asarray(X, dtype=np.float64)
+    prev_lp = -np.inf
+    for _ in range(n_iter):
+        log_b = gaussian_hmm_log_density(X, means, covars)
+        lp, gamma, xi_sum = _scaled_forward_backward(log_b, startprob, trans)
+        norm = np.maximum(gamma.sum(axis=0)[:, None], 1e-300)
+        means = (gamma.T @ X) / norm
+        covars = (gamma.T @ (X**2)) / norm - means**2 + _HMM_MIN_COVAR
+        covars = np.maximum(covars, _HMM_MIN_COVAR)
+        row = xi_sum.sum(axis=1, keepdims=True)
+        trans = xi_sum / np.where(row > 0, row, 1.0)
+        if lp - prev_lp < tol:
+            break
+        prev_lp = lp
+    return means, covars, trans
+
+
+def gaussian_hmm_viterbi(log_b, startprob, trans) -> np.ndarray:
+    """Most likely state path for per-frame log densities ``log_b``."""
+    T, K = log_b.shape
+    log_trans = np.log(trans)
+    delta = np.log(startprob) + log_b[0]
+    back = np.zeros((T - 1, K), dtype=int)
+    for t in range(1, T):
+        scores = delta[:, None] + log_trans
+        back[t - 1] = scores.argmax(axis=0)
+        delta = scores.max(axis=0) + log_b[t]
+    path = np.empty(T, dtype=int)
+    path[-1] = int(delta.argmax())
+    for t in range(T - 2, -1, -1):
+        path[t] = back[t][path[t + 1]]
+    return path

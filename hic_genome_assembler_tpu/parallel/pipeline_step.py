@@ -16,9 +16,9 @@ XLA materializes the psum/all-gather pattern from the sharding
 annotations (the scaling-book recipe); nothing here hand-schedules
 collectives.
 
-Consumers: the driver-run multi-chip dryrun (__graft_entry__.
-dryrun_multichip step 3) executes this on every round's virtual mesh;
-tests/test_multichip.py asserts its shardings.  The production pipeline
+Consumers: the multi-device dryrun (__graft_entry__.dryrun_multichip
+step 3) executes this on a virtual CPU mesh; tests/test_multichip.py
+asserts its shardings.  The production pipeline
 itself composes the same kernels stage-by-stage (the searches are
 host-driven loops), so this module is the one-jit composition proof,
 not a third code path.
@@ -50,7 +50,9 @@ def _step(matrix, row_sums, rank_mat, bin_orders, w2):
     )
     # DP: batched permutation scoring + global argmax
     gathered = sim[bin_orders[:, :, None], bin_orders[:, None, :]]
-    costs = 0.5 * jnp.einsum("bij,ij->b", gathered, w2)
+    costs = 0.5 * jnp.einsum(
+        "bij,ij->b", gathered, w2, precision=jax.lax.Precision.HIGHEST
+    )
     best = jnp.argmax(costs)
     return dist, counts, costs, best
 

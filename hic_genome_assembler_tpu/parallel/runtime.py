@@ -3,7 +3,7 @@
 The reference is strictly single-process (SURVEY.md §2b); this module is
 the single place where a production run acquires its parallel substrate:
 
-* ``jax.distributed.initialize`` (multi-host pods; no-op single host),
+* ``jax.distributed.initialize`` (multi-process runs; no-op for one process),
   via :func:`parallel.distributed.init_distributed`;
 * a 2-D (data, model) :class:`jax.sharding.Mesh` over the local devices
   (``parallel.mesh.make_mesh``) when more than one device is visible;
@@ -44,27 +44,59 @@ def resolve_mesh_spec(mesh_spec: Optional[str] = None) -> str:
     return os.environ.get("HIC_MESH", "auto")
 
 
-def _enable_persistent_compile_cache() -> None:
-    """Point XLA at an on-disk compilation cache so pipeline reruns skip
-    the 15-40 s first-compile cost of the count/score kernels (the
-    reference has no compile step at all, so cold-compile time is pure
-    regression against it on short runs).  Override the location with
-    $HIC_JAX_CACHE; disable with HIC_JAX_CACHE=off."""
-    loc = os.environ.get("HIC_JAX_CACHE", "")
-    if loc.lower() == "off":
-        return
-    if not loc:
-        loc = os.path.join(
-            os.path.expanduser("~"), ".cache", "hic_assembler_jax"
-        )
+# the checkout root: parallel/ -> package -> checkout
+_CHECKOUT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+
+
+def compile_cache_dir() -> Optional[str]:
+    """Where this program puts XLA's persistent compilation cache:
+    None when ``JAX_COMPILATION_CACHE_DIR`` is set (JAX then reads that
+    directory itself), else ``<checkout>/.jax_cache``."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return os.path.join(_CHECKOUT, ".jax_cache")
+
+
+def enable_compile_cache() -> None:
+    """Turn on the persistent compilation cache (see
+    :func:`compile_cache_dir`) so reruns skip recompiling the count and
+    scoring kernels."""
     import jax
 
-    try:
-        os.makedirs(loc, exist_ok=True)
+    loc = compile_cache_dir()
+    if loc is not None:
         jax.config.update("jax_compilation_cache_dir", loc)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except (OSError, AttributeError):
-        pass  # read-only filesystem or older jax: run without the cache
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def device_summary() -> str:
+    """One line naming the device the process computes on, as JAX
+    reports it."""
+    import jax
+
+    devices = jax.devices()
+    return "platform={} kind={} count={}".format(
+        devices[0].platform, devices[0].device_kind, len(devices)
+    )
+
+
+def nvidia_smi_identity() -> str:
+    """Each visible card's name and power limit, one line per card, as
+    ``nvidia-smi --query-gpu=name,power.limit`` reports them (a card set
+    below its maximum power runs slower under load, so every timing is
+    reported beside this)."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        )
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"nvidia-smi unavailable ({exc})"
+    return out.stdout.strip()
 
 
 def bring_up(mesh_spec: Optional[str] = None) -> RuntimeContext:
@@ -76,9 +108,10 @@ def bring_up(mesh_spec: Optional[str] = None) -> RuntimeContext:
     """
     from hic_genome_assembler_tpu.parallel import distributed
 
-    _enable_persistent_compile_cache()
+    enable_compile_cache()
     spec = resolve_mesh_spec(mesh_spec)
     process_index, process_count = distributed.init_distributed()
+    print("- Device: " + device_summary())
 
     if spec == "off":
         return RuntimeContext(None, process_index, process_count)

@@ -265,3 +265,136 @@ def _write_validpairs(genome: SyntheticGenome, path: str, rng: np.random.Generat
                         f"read_{read_id}\t{left.name}\t{c1}\t+\t{right.name}\t{c2}\t-\t42\tHIC_frag\tHIC_frag\t42\t42\n"
                     )
                     read_id += 1
+
+
+# ---------------------------------------------------------------------------
+# The e2e-16k deployment and its planted-truth checks
+# ---------------------------------------------------------------------------
+
+
+def e2e_16k_genome(
+    seed: int = 3, n_chroms: int = 25, scaffolds: int = 52
+) -> SyntheticGenome:
+    """The north-star planted genome: ``n_chroms`` chromosomes of
+    ``scaffolds`` pareto-sized scaffolds each (17,162 bins, 1,300
+    scaffolds and a 170 Mb FASTA at the defaults)."""
+    rng = np.random.default_rng(seed)
+    layout = []
+    for _ in range(n_chroms):
+        sizes = np.maximum((rng.pareto(2.0, scaffolds) * 12 + 2).astype(int), 1)
+        layout.append(tuple(int(v) for v in sizes))
+    return make_genome(
+        chrom_scaffold_bins=tuple(layout), seed=seed, noise=0.003,
+        cross_noise_frac=0.0,
+    )
+
+
+def hmm_scale_genome(n: int = 4096, n_chroms: int = 12, seed: int = 7) -> SyntheticGenome:
+    """The planted block genome of the HMM-at-scale benchmark: about
+    ``n`` bins in ``n_chroms`` chromosomes of 4-7 pareto-sized
+    scaffolds, with cross-chromosome noise for the HMM to see through."""
+    rng = np.random.default_rng(seed)
+    layout = []
+    for _ in range(n_chroms):
+        k = int(rng.integers(4, 8))
+        sizes = np.maximum(
+            (rng.pareto(2.0, k) * 15 * (n / 2900.0) + 7 * (n / 2900.0)).astype(int), 3
+        )
+        layout.append(tuple(int(s) for s in sizes))
+    return make_genome(
+        chrom_scaffold_bins=tuple(layout), seed=seed, noise=0.02,
+        cross_noise_frac=0.004,
+    )
+
+
+def write_pipeline_config(
+    path: str, data: Dict[str, str], out_dir: str, resolution: int, **keys
+) -> str:
+    """A pipeline config for the files ``write_hicpro_files`` returned
+    (``data``), writing the file bus into ``out_dir``.  ``keys`` add or
+    override config keys; plot keys left out stay empty (no plots)."""
+    var: Dict[str, object] = {
+        "resolution": resolution,
+        "saveFilesDirectory": out_dir,
+        "hicProBedFile": data["bed"],
+        "hicProBiasFile": data["bias"],
+        "hicProMatrixFile": data["matrix"],
+        "hicProScaffSizeFile": data["sizes"],
+        "chromosomeGroupFile": "chromgroups.txt",
+        "chromosomeOrderFile": "chromorder.txt",
+        "finalOrderingsFile": "final_order.txt",
+        "dendrogramOrderFile": "dendro.txt",
+        "binGroupFile": "bingroups.txt",
+        "assessmentFile": "assessment.txt",
+        "plotOrderFile": "plotorder.txt",
+        "restrictionSiteFile": data["restriction"],
+        "validPairFile": data["validpairs"],
+        "originalFastaFile": data["fasta"],
+        "assembledFastaFile": "assembled.fasta",
+    }
+    var.update(keys)
+    with open(path, "w") as fh:
+        for k, v in var.items():
+            fh.write(f"{k} = {v}\n")
+    return path
+
+
+def _contiguous_segment(names: List[str], want_order: List[str]) -> bool:
+    for cand in (names, names[::-1]):
+        for ofs in range(len(want_order) - len(cand) + 1):
+            if want_order[ofs : ofs + len(cand)] == cand:
+                return True
+    return False
+
+
+def check_assembly(
+    genome: SyntheticGenome, group_file: str, ordering_file: str, fasta_file: str
+) -> Dict[str, object]:
+    """Planted-truth checks of a finished run: chromosome groups, each
+    matched group's scaffold order (up to reversal), planted chromosomes
+    covered by internally ordered contiguous segments (how the last
+    chromosome in dendrogram order may be split), and FASTA entry
+    lengths (scaffolds plus one 100-N gap between neighbours)."""
+    from hic_genome_assembler_tpu.io import fasta, filebus
+
+    got_groups = [
+        frozenset(row[1] for row in chrom)
+        for chrom in filebus.read_chroms_from_file(group_file)
+    ]
+    want_sets = {frozenset(v): c for c, v in genome.true_groups().items()}
+    ordering = filebus.read_chromosome_ordering(ordering_file)
+    recovered = checked = 0
+    for group in ordering:
+        names = [row[0] for row in group]
+        c = want_sets.get(frozenset(names))
+        if c is None:
+            continue
+        checked += 1
+        want = [name for name, _o in genome.true_order(c)]
+        recovered += names == want or names == want[::-1]
+    covered = 0
+    for c, names_want in genome.true_groups().items():
+        want_order = [n for n, _o in genome.true_order(c)]
+        segs = [[r[0] for r in g] for g in ordering if {r[0] for r in g} <= set(names_want)]
+        content_ok = sorted(n for seg in segs for n in seg) == sorted(names_want)
+        if content_ok and all(_contiguous_segment(seg, want_order) for seg in segs):
+            covered += 1
+    entries = fasta.read_fasta(fasta_file)
+    size_of = {s.name: s.size_bp for s in genome.scaffolds}
+    lengths_ok = sum(
+        len(entries.get(f"Chr_{i + 1}", ""))
+        == sum(size_of[r[0]] for r in group) + 100 * (len(group) - 1)
+        for i, group in enumerate(ordering)
+    )
+    return {
+        "groups_match_truth": sorted(got_groups, key=sorted) == sorted(want_sets, key=sorted),
+        "groups_found": len(got_groups),
+        "orders_recovered": recovered,
+        "orders_checked": checked,
+        "planted_chromosomes": len(want_sets),
+        "chromosomes_covered_by_ordered_segments": covered,
+        "ordered_groups": len(ordering),
+        "assembled_entries": len(entries),
+        "assembled_total_bp": sum(len(v) for v in entries.values()),
+        "entry_lengths_ok": lengths_ok,
+    }

@@ -3,12 +3,11 @@
 The pipeline's host stages stream multi-GB f64 matrices through
 transient numpy buffers.  glibc serves every such allocation with a
 fresh mmap and munmaps it on free, so each one re-pays first-touch page
-faults for its whole extent.  On bare metal that is ~1 us/page noise;
-on micro-VM hosts with lazily-faulted memory (Firecracker-style
-snapshot/ballooned backing) a fault costs tens of microseconds and a
-single 2.1 GB allocation pays ~20 s BEFORE any compute — measured on
-the round-5 CI host: 0.09 GB/s into fresh pages vs 7-8 GB/s into
-reused ones, a 70x cliff that dwarfed every kernel it wrapped.
+faults for its whole extent.  On bare metal that is noise; on micro-VM
+hosts with lazily-faulted memory (Firecracker-style snapshot/ballooned
+backing) a fault is far dearer, and a single 2.1 GB allocation can pay
+seconds BEFORE any compute (measured once on an earlier CI host; not
+re-measured on the GPU host).
 
 ``tune()`` raises glibc's mmap and trim thresholds via mallopt(3) so
 large blocks live in the sbrk heap and freed pages are REUSED warm

@@ -6,7 +6,7 @@ Replaces the reference's bracket-and-print time.time() scattering
 * ``timer(name)`` — context manager accumulating wall-clock per stage
   into a process-wide registry (printed summary on demand);
 * ``device_trace(logdir)`` — jax.profiler trace context for TensorBoard
-  (per-kernel HLO timings on TPU);
+  (per-kernel device timings);
 * ``block_scorer_gather_count`` so benchmarks can report table-gather
   throughput, not just candidate rates.
 """

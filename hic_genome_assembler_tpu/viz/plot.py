@@ -5,8 +5,8 @@ Capability parity with plotContactMaps.py:15-91: plasma colormap
 white group outlines from cut indices, Agg backend, save-to-png, and
 interactive display via ``show_plot`` (plotContactMaps.py:86-88 —
 notebook real-time viewing, orderGenome.py:600).  Implemented directly
-on matplotlib (the reference's xarray wrapper adds nothing on TPU
-hosts).  The backend defaults to Agg (headless TPU hosts); when
+on matplotlib (the reference's xarray wrapper adds nothing here).
+The backend defaults to Agg (headless hosts); when
 ``show_plot=True`` is requested under Agg, ``plt.show()`` is still
 called — matplotlib makes it a warning no-op — so notebook/GUI
 deployments that pre-select an interactive backend get the reference

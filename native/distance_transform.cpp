@@ -4,9 +4,9 @@
 // Python double loop (scaffoldToChromosomes.py:138-148); the framework's
 // f64 oracle replaced that with vectorized numpy, but the numpy
 // expression still makes three full-matrix temporaries (m/rs, 1-x, x+1:
-// ~6 passes over 2.1 GB at 16K plus allocator traffic — 15.35 s recorded
-// in the round-3 16K chain).  This kernel fuses the three ops into ONE
-// read + ONE write pass, split across hardware threads by row blocks.
+// ~6 passes over 2.1 GB at 16K plus allocator traffic).  This kernel
+// fuses the three ops into ONE read + ONE write pass, split across
+// hardware threads by row blocks.
 //
 // Bit-exactness contract: each output element is produced by the same
 // IEEE-754 double sequence as the numpy expression — divide, subtract
@@ -17,12 +17,12 @@
 // multiply-add in the expression, so FMA contraction cannot alter it;
 // compiled without -ffast-math.)
 //
-// Why host, not TPU: the UPGMA feed must be f64 for scipy-bit-identical
-// linkage (SURVEY §7 "bit-identical UPGMA"), and TPU hardware has no
-// f64 — so the TPU-native design puts this transform in the native host
-// runtime (like the COO/validPairs scanners) and keeps the f32 device
-// transform (ops/matrix.py) for the similarity/rank stages where
-// integer-count exactness, not f64 bitness, is the contract.
+// Why host: the UPGMA feed must be f64 and bit-identical to numpy for
+// scipy-bit-identical linkage (SURVEY §7 "bit-identical UPGMA"), so this
+// transform lives in the native host runtime (like the COO/validPairs
+// scanners); the f32 device transform (ops/matrix.py) serves the
+// similarity/rank stages where integer-count exactness, not f64
+// bitness, is the contract.
 
 #include <algorithm>
 #include <cstdint>

@@ -16,7 +16,7 @@
 //   sigma_tot updated -=/+= in the same visit order.
 // The sweep is inherently sequential (every accepted move changes the
 // state the next visit reads), so this is single-threaded C replacing
-// ~60 us/visit of numpy dispatch overhead with a fused
+// per-visit numpy dispatch overhead with a fused
 // scan+gain+argmax pass — and is also why the SURVEY §2b idea of
 // evaluating gains on DEVICE does not pay: one dispatch round trip per
 // visit would be latency-bound at any scale (see cluster/louvain.py).

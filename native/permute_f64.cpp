@@ -4,7 +4,7 @@
 // leaf-order reorder of the full contact matrix
 // (scaffoldToChromosomes.py:157-163 `matrix[:, order][order]`;
 // part1_cluster.py applies the same permute after UPGMA).  At 16K the
-// np.ix_ form moves 2.1 GB at ~0.2 GB/s on a container host (~11 s);
+// np.ix_ form moves 2.1 GB single-threaded and cache-hostile;
 // this kernel threads over output-row blocks and keeps the inner gather
 // within one 128 KB source row (L2-resident), so it runs at memory
 // bandwidth.  Bit-identical trivially: pure data movement.

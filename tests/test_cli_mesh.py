@@ -35,44 +35,13 @@ def cli_genome():
 
 
 def _write_config(path, data_paths, out_dir):
-    cfg = f"""
-resolution = 10000
-saveFilesDirectory = {out_dir}
-savePlotsDirectory = {out_dir}
-hicProBedFile = {data_paths["bed"]}
-hicProBiasFile = {data_paths["bias"]}
-hicProMatrixFile = {data_paths["matrix"]}
-hicProScaffSizeFile = {data_paths["sizes"]}
-chromosomeGroupFile = chromgroups.txt
-chromosomeOrderFile = chromorder.txt
-finalOrderingsFile = chromorder.txt
-hyperGeom = True
-hmm = False
-minSize = 5
-modularity = 0
-psig = .05
-convergenceRounds = 5
-lookAhead = .2
-louvainRounds = 3
-dendrogramOrderFile = dendro.txt
-avgClusterPlot = none.png
-avgClusterPlot_outlined = none2.png
-binGroupFile = bingroups.txt
-assessmentFile = assessment.txt
-chromosomePlotSuffix = t
-fullGenomePlot = genome.png
-fullGenomePlotTitle = t
-plotOrderFile = plotorder.txt
-nScaffolds = 4
-scanScaffolds = 3
-lengthCutoff = 20000
-restrictionSiteFile = {data_paths["restriction"]}
-validPairFile = {data_paths["validpairs"]}
-originalFastaFile = {data_paths["fasta"]}
-assembledFastaFile = assembled.fasta
-"""
-    with open(path, "w") as fh:
-        fh.write(cfg)
+    fixtures.write_pipeline_config(
+        path, data_paths, out_dir, 10000,
+        finalOrderingsFile="chromorder.txt", hyperGeom="True", hmm="False",
+        minSize=5, modularity=0, psig=0.05, convergenceRounds=5,
+        lookAhead=0.2, louvainRounds=3, nScaffolds=4, scanScaffolds=3,
+        lengthCutoff=20000,
+    )
 
 
 def test_cli_mesh_matches_cli_off(cli_genome, tmp_path):

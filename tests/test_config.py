@@ -1,5 +1,7 @@
 """Config parser behavior parity (vs run_hicAssembler.py:9-245 semantics)."""
 
+import sys
+
 import pytest
 
 from hic_genome_assembler_tpu import config
@@ -78,3 +80,36 @@ def test_ensure_all_set_flags_empty_and_mutex():
     assert config.ensure_all_variables_are_set(var) is False
     var["hmm"] = True  # both strategies set -> fatal
     assert config.ensure_all_variables_are_set(var) is True
+
+
+def _all_set(**overrides):
+    var = config.default_variables()
+    for key, val in var.items():
+        if val == "":
+            var[key] = "x" if key != "resolution" else 1
+    var.update(overrides)
+    return var
+
+
+def test_plot_keys_may_be_empty():
+    """An empty plot key turns that plot off instead of failing the
+    check; every other key is still required."""
+    plot_keys = (
+        "savePlotsDirectory", "avgClusterPlot", "avgClusterPlot_outlined",
+        "fullGenomePlot", "chromosomePlotSuffix", "fullGenomePlotTitle",
+    )
+    var = _all_set(**{key: "" for key in plot_keys})
+    assert config.ensure_all_variables_are_set(var) is False
+    var["binGroupFile"] = ""
+    assert config.ensure_all_variables_are_set(var) is True
+
+
+def test_plot_without_matplotlib_fails_check(monkeypatch, capsys):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    assert config.ensure_all_variables_are_set(_all_set()) is True
+    assert "matplotlib is not installed" in capsys.readouterr().out
+    no_plots = _all_set(
+        savePlotsDirectory="", avgClusterPlot="", avgClusterPlot_outlined="",
+        fullGenomePlot="",
+    )
+    assert config.ensure_all_variables_are_set(no_plots) is False

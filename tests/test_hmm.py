@@ -1,9 +1,13 @@
 """JAX Gaussian HMM + HMM cut strategy."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from hic_genome_assembler_tpu.cluster import hmm_cuts
-from hic_genome_assembler_tpu.ops.gaussian_hmm import GaussianHMM2
+from hic_genome_assembler_tpu.ops import gaussian_hmm
+from hic_genome_assembler_tpu.ops.gaussian_hmm import GaussianHMM2, kmeans2
 
 
 def two_segment_obs(seed=0, t1=40, t2=40, d=6, sep=4.0):
@@ -156,3 +160,56 @@ def test_hmm_fast_mode_padding_is_inert():
     m = GaussianHMM2(seed=0, mode="fast").fit(small)
     assert m.predict(small).shape == (100,)
     assert set(np.unique(m.predict(base[:100]))) <= {0, 1}
+
+
+def _dot_precisions(jaxpr):
+    """precision of every dot_general in a jaxpr, sub-jaxprs included."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            out.extend(_dot_precisions(sub))
+    return out
+
+
+def _hmm_programs():
+    T, D = 16, 3
+    X = jnp.ones((T, D))
+    mk = jnp.ones((2, D))
+    trans = jnp.full((2, 2), 0.5)
+    log_start = jnp.log(jnp.full((2,), 0.5))
+    return {
+        "masked_fit": (
+            lambda: gaussian_hmm._fit_predict_masked(
+                X, T, D, mk, mk, trans, log_start, 1e-2, n_iter=5)
+        ),
+        "exact_fit": (
+            lambda: gaussian_hmm._em_fit(X, mk, mk, trans, log_start, 1e-2, n_iter=5)
+        ),
+        "predict_density": lambda: gaussian_hmm._log_gaussian_diag(X, mk, mk),
+    }
+
+
+@pytest.mark.parametrize("name", ["masked_fit", "exact_fit", "predict_density"])
+def test_hmm_matmuls_pin_highest_precision(name):
+    """Every f32 product of the HMM step runs at HIGHEST (a GPU would
+    otherwise run it in TF32)."""
+    jaxpr = jax.make_jaxpr(_hmm_programs()[name])().jaxpr
+    precisions = _dot_precisions(jaxpr)
+    assert precisions, "no dot_general found"
+    highest = jax.lax.Precision.HIGHEST
+    assert all(p == (highest, highest) for p in precisions), precisions
+
+
+def test_kmeans2_deterministic_and_separates():
+    rng = np.random.default_rng(0)
+    X = np.concatenate([rng.normal(0.0, 0.3, (50, 3)), rng.normal(4.0, 0.3, (40, 3))])
+    a = kmeans2(X, seed=1, n_init=3)
+    b = kmeans2(X, seed=1, n_init=3)
+    np.testing.assert_array_equal(a, b)
+    centers = a[np.argsort(a[:, 0])]
+    np.testing.assert_allclose(centers[0], X[:50].mean(axis=0), atol=1e-12)
+    np.testing.assert_allclose(centers[1], X[50:].mean(axis=0), atol=1e-12)
+    # a constant input has one center however it is seeded
+    np.testing.assert_array_equal(kmeans2(np.ones((5, 2)), seed=3), np.ones((2, 2)))

@@ -5,7 +5,7 @@ The reference depends on hmmlearn (scaffoldToChromosomes.py:797-801) and
 python-louvain (:253); neither is installable in this offline image, so:
 
 * GaussianHMM2 is validated against a from-the-math numpy EM oracle
-  written here with a DIFFERENT numerical route (scaled probability-
+  (ops/oracle.py) with a DIFFERENT numerical route (scaled probability-
   space forward-backward instead of log-space scans) under identical
   initialization, plus a k-means-init sensitivity quantification
   (hmmlearn's KMeans(random_state=None) vs the pinned seed);
@@ -23,98 +23,12 @@ import numpy as np
 import pytest
 
 from hic_genome_assembler_tpu.cluster import louvain
-from hic_genome_assembler_tpu.ops.gaussian_hmm import (
-    _MIN_COVAR,
-    GaussianHMM2,
+from hic_genome_assembler_tpu.ops.gaussian_hmm import GaussianHMM2
+from hic_genome_assembler_tpu.ops.oracle import (
+    gaussian_hmm_em_fit,
+    gaussian_hmm_log_density,
+    gaussian_hmm_viterbi,
 )
-
-
-# ---------------------------------------------------------------------------
-# numpy EM oracle: scaled probability-space forward-backward
-# ---------------------------------------------------------------------------
-
-
-def _dens(X, means, covars):
-    """N(x_t | mu_k, diag(sig_k)) densities [T, K] (prob space)."""
-    T, D = X.shape
-    K = means.shape[0]
-    out = np.empty((T, K))
-    for k in range(K):
-        diff2 = (X - means[k]) ** 2
-        expo = -0.5 * (diff2 / covars[k]).sum(axis=1)
-        norm = np.prod(2.0 * np.pi * covars[k]) ** -0.5
-        out[:, k] = norm * np.exp(expo)
-    return out
-
-
-def _scaled_forward_backward(b, startprob, trans):
-    """Rabiner-scaled alpha/beta; returns (loglik, gamma, xi_sum)."""
-    T, K = b.shape
-    alpha = np.empty((T, K))
-    scale = np.empty(T)
-    alpha[0] = startprob * b[0]
-    scale[0] = alpha[0].sum()
-    alpha[0] /= scale[0]
-    for t in range(1, T):
-        alpha[t] = (alpha[t - 1] @ trans) * b[t]
-        scale[t] = alpha[t].sum()
-        alpha[t] /= scale[t]
-    beta = np.empty((T, K))
-    beta[-1] = 1.0
-    for t in range(T - 2, -1, -1):
-        beta[t] = (trans @ (b[t + 1] * beta[t + 1])) / scale[t + 1]
-    gamma = alpha * beta
-    gamma /= gamma.sum(axis=1, keepdims=True)
-    xi_sum = np.zeros((K, K))
-    for t in range(T - 1):
-        xi = (
-            alpha[t][:, None]
-            * trans
-            * (b[t + 1] * beta[t + 1])[None, :]
-            / scale[t + 1]
-        )
-        xi_sum += xi
-    return float(np.log(scale).sum()), gamma, xi_sum
-
-
-def _numpy_em_fit(X, means, covars, trans, startprob, tol, n_iter):
-    """hmmlearn-semantics EM: lp from PRE-update params, M step always
-    applies, stop once lp - prev_lp < tol."""
-    prev_lp = -np.inf
-    for _ in range(n_iter):
-        b = _dens(X, means, covars)
-        lp, gamma, xi_sum = _scaled_forward_backward(b, startprob, trans)
-        norm = np.maximum(gamma.sum(axis=0)[:, None], 1e-300)
-        means = (gamma.T @ X) / norm
-        covars = (gamma.T @ (X**2)) / norm - means**2 + _MIN_COVAR
-        covars = np.maximum(covars, _MIN_COVAR)
-        row = xi_sum.sum(axis=1, keepdims=True)
-        trans = xi_sum / np.where(row > 0, row, 1.0)
-        if lp - prev_lp < tol:
-            break
-        prev_lp = lp
-    return means, covars, trans
-
-
-def _numpy_viterbi(b_log, startprob, trans):
-    T, K = b_log.shape
-    log_trans = np.log(trans)
-    delta = np.log(startprob) + b_log[0]
-    back = np.zeros((T - 1, K), dtype=int)
-    for t in range(1, T):
-        scores = delta[:, None] + log_trans
-        back[t - 1] = scores.argmax(axis=0)
-        delta = scores.max(axis=0) + b_log[t]
-    path = np.empty(T, dtype=int)
-    path[-1] = int(delta.argmax())
-    for t in range(T - 2, -1, -1):
-        path[t] = back[t][path[t + 1]]
-    return path
-
-
-def _log_dens(X, means, covars):
-    with np.errstate(divide="ignore"):
-        return np.log(np.maximum(_dens(X, means, covars), 1e-300))
 
 
 def _regime_data(rng, T=220, sep=4.0):
@@ -141,15 +55,15 @@ def test_gaussian_hmm_matches_numpy_oracle(seed):
     trans0 = model.transmat_init.copy()
     model._init_params = lambda _x: (means0.copy(), covars0.copy())
     model.fit(X)
-    m_np, c_np, t_np = _numpy_em_fit(
+    m_np, c_np, t_np = gaussian_hmm_em_fit(
         X, means0.copy(), covars0.copy(), trans0, model.startprob, 1e-2, 1000
     )
     np.testing.assert_allclose(model.means_, m_np, rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(model.covars_, c_np, rtol=5e-3, atol=5e-3)
     np.testing.assert_allclose(model.transmat_, t_np, rtol=5e-3, atol=5e-3)
     path_jax = model.predict(X)
-    path_np = _numpy_viterbi(
-        _log_dens(X, m_np, c_np), model.startprob, t_np
+    path_np = gaussian_hmm_viterbi(
+        gaussian_hmm_log_density(X, m_np, c_np), model.startprob, t_np
     )
     assert (path_jax == path_np).all()
 

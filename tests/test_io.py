@@ -1,5 +1,7 @@
 """HiC-Pro ingestion + file-bus round-trips on synthetic fixtures."""
 
+import os
+
 import numpy as np
 
 from hic_genome_assembler_tpu.io import fasta, filebus, hicpro
@@ -194,3 +196,31 @@ def test_native_coo_parser_matches_pandas(genome, hicpro_dir, tmp_path):
     empty = tmp_path / "empty.matrix"
     empty.write_text("")
     assert native.parse_coo(str(empty)).shape == (0, 3)
+
+
+def test_native_library_builds_from_sources_into_ignored_path(tmp_path):
+    """The library is built from native/*.cpp into native/build/ (which
+    .gitignore lists), keyed on a hash of the sources: an edited source
+    builds a new library beside the old one."""
+    import ctypes
+
+    from hic_genome_assembler_tpu.io import native
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    real = native.library_path()
+    assert os.path.dirname(real) == os.path.join(repo, "native", "build")
+    with open(os.path.join(repo, ".gitignore")) as fh:
+        assert "native/build/" in fh.read().split()
+
+    src = tmp_path / "answer.cpp"
+    src.write_text('extern "C" int answer() { return 41; }\n')
+    first = native.build_library(str(tmp_path))
+    assert first == native.library_path(str(tmp_path))
+    assert os.path.dirname(first) == str(tmp_path / "build")
+    assert ctypes.CDLL(first).answer() == 41
+    assert native.build_library(str(tmp_path)) == first  # no rebuild
+
+    src.write_text('extern "C" int answer() { return 42; }\n')
+    second = native.build_library(str(tmp_path))
+    assert second != first and os.path.exists(first)
+    assert ctypes.CDLL(second).answer() == 42

@@ -86,6 +86,13 @@ def test_fused_step_runs_on_mesh(mesh8):
     assert len(dist.sharding.device_set) == 8
     assert counts.shape == (64,)
     assert 0 <= int(best) < costs.shape[0]
+    # its f32 contraction pins HIGHEST (no TF32 on a GPU)
+    import jax
+
+    jaxpr = jax.make_jaxpr(pipeline_step._step)(*inputs).jaxpr
+    dots = [e.params["precision"] for e in jaxpr.eqns if e.primitive.name == "dot_general"]
+    highest = jax.lax.Precision.HIGHEST
+    assert dots and all(p == (highest, highest) for p in dots)
 
 
 def test_rank_counts_sharded_equals_local(mesh8):

@@ -218,7 +218,7 @@ def test_pending_speculation_matches_host_counts():
     prefetch_fixed_pairs / pending materialization) must produce counts
     identical to the direct host scan, and pre_process/filter must give
     identical cuts with and without it (the 16K path exercises it on
-    TPU; here the XLA-CPU device path at n > _HOST_N)."""
+    the GPU; here the XLA-CPU device path at n > _HOST_N)."""
     from hic_genome_assembler_tpu.cluster import breakpoints as bp
 
     rng = np.random.default_rng(4)
